@@ -2,14 +2,12 @@
 """Fused INT4-KV attention vs dequantize-then-attend, true per-op latency.
 
 The INT4 KV cache is the reference's long-context motivation bullet
-(`/root/reference/README.md:112`) built out: this measures the fused
+(`README.md:112`) built out: this measures the fused
 flash-decoding kernel (packed cache dequantized in-kernel, never
 materialized) against the jnp fallback (materialize bf16 K/V, dense
 attention) across context lengths, using the slope protocol
-(utils.benchmark.time_fn_slope) so the platform's fixed per-iteration cost
-is differenced out.
-
-Writes benchmark/results/attention_sweep.json.
+(utils.benchmark.time_fn_slope) so the fixed per-iteration cost is
+differenced out.
 
 Usage: python benchmark/run_attention_benchmark.py --contexts 1024 4096 8192
 """
@@ -22,22 +20,19 @@ import numpy as np
 
 import _bootstrap  # noqa: F401
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_comp")
-
 import jax
 import jax.numpy as jnp
 
-from fused4bit_tpu.layers.kv_cache import QuantizedKVCache
-from fused4bit_tpu.ops.decode_attention import int4_decode_attention
-from fused4bit_tpu.utils.benchmark import time_fn_slope
-from fused4bit_tpu.utils.device_profile import device_op_times
+from fused4bit.layers.kv_cache import QuantizedKVCache
+from fused4bit.ops.decode_attention import int4_decode_attention
+from fused4bit.utils.benchmark import time_fn_slope
+from fused4bit.utils.device_profile import device_op_times
 
 # Mixtral head geometry
 B, NH, NKV, D = 8, 32, 8, 128
 
-# Keep each timed chain's KV working set above the platform's fast-tier /
-# prefetch budget (~64-128 MB measured, probe_device_bw.py) so caches
-# stream from HBM like a real multi-layer model's.
+# Keep each timed chain's KV working set above the 50 MB L2 cache so caches
+# stream from device memory like a real multi-layer model's.
 _MIN_CHAIN_BYTES = 256 * 1024 * 1024
 
 
@@ -116,10 +111,8 @@ def main(argv=None):
         cell = results.setdefault(f"ctx{ctx}", {})
         kv_bytes_packed = cache.k_packed.size * 2 + cache.k_scale.size * 2 * 4 * 2
         # Correctness first — BOTH impls against an f64 host golden on the
-        # same dequantized cache. (Round 3 verified the kernel against the
-        # bf16 baseline and saw "kernel error growing with context"; the
-        # growth was the BASELINE's own bf16 softmax/einsum drift — kernel
-        # 0.26-0.27% FLAT at ctx 4k-16k, baseline 1.1->1.7%.)
+        # same dequantized cache (a bf16 baseline drifts with context on
+        # its own; the golden does not).
         kd, vd = cache.dequantize(dtype=jnp.float32)
         kd64 = np.repeat(np.asarray(kd), NH // NKV, axis=1).astype(np.float64)
         vd64 = np.repeat(np.asarray(vd), NH // NKV, axis=1).astype(np.float64)

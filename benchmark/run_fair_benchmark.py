@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Fair comparison: same weights, same inputs, every implementation.
 
-TPU counterpart of `/root/reference/benchmark/run_fair_benchmark.py:49-172`:
+Counterpart of the reference's `benchmark/run_fair_benchmark.py:49-172`:
 all implementations consume the *identical* dense weights (quantized variants
 derive from them) and identical routed inputs; reports latency, effective
 TFLOPS, and weight memory side by side.
@@ -15,11 +15,11 @@ import _bootstrap  # noqa: F401
 import jax
 import jax.numpy as jnp
 
-from fused4bit_tpu.layers.moe import dispatch, make_dispatch_plan, simulate_router_logits, topk_route
-from fused4bit_tpu.models.config import get_config_by_name
-from fused4bit_tpu.ops.grouped_matmul import grouped_int4_matmul
-from fused4bit_tpu.quant import dequantize, quantize
-from fused4bit_tpu.utils.benchmark import time_fn
+from fused4bit.layers.moe import dispatch, make_dispatch_plan, simulate_router_logits, topk_route
+from fused4bit.models.config import get_config_by_name
+from fused4bit.ops.grouped_matmul import grouped_int4_matmul
+from fused4bit.quant import dequantize, quantize
+from fused4bit.utils.benchmark import time_fn
 
 
 def main(argv=None):

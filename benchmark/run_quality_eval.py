@@ -11,7 +11,7 @@ QuantizedTransformer), and measures on held-out real text:
   * mean cosine similarity of the logit vectors.
 
 This upgrades the reference's random-weight quality ladder
-(`/root/reference/tests/test_correctness.py:140-168`, cos > 0.95) to trained
+(`tests/test_correctness.py:140-168`, cos > 0.95) to trained
 weights through the full convert path. Writes
 benchmark/results/quality_trained.json.
 """
@@ -37,8 +37,8 @@ FIXTURE = os.environ.get(
 
 
 def load_fixture_model():
-    from fused4bit_tpu.models.config import ModelConfig, MoEConfig
-    from fused4bit_tpu.models.convert import convert_safetensors
+    from fused4bit.models.config import ModelConfig, MoEConfig
+    from fused4bit.models.convert import convert_safetensors
 
     with open(FIXTURE.replace(".safetensors", ".json")) as f:
         meta = json.load(f)
@@ -85,16 +85,16 @@ def main():
     if not os.path.exists(FIXTURE):
         print("fixture missing — run scripts/train_tiny.py first")
         return 1
-    from fused4bit_tpu.models.dense_baseline import dense_from_quantized
+    from fused4bit.models.dense_baseline import dense_from_quantized
 
-    from fused4bit_tpu.models.convert import convert_checkpoint
+    from fused4bit.models.convert import convert_checkpoint
 
     cfg, meta = load_fixture_model()
     tokens = heldout_text(seq=128, rows=16)
 
     # bf16 dense reference built from the SAME fixture weights (not from the
     # quantized model): the honest quality comparison
-    from fused4bit_tpu.models.safetensors_io import load_safetensors
+    from fused4bit.models.safetensors_io import load_safetensors
     raw = load_safetensors(FIXTURE)
     dense = _dense_from_params(raw, cfg)
     lg_d, nll_d = eval_model(dense, cfg, tokens)
@@ -178,7 +178,7 @@ def _calibration_tokens(seq=128, rows=8):
 def _dense_from_params(raw, cfg):
     """Build the dense bf16 twin straight from the checkpoint dict."""
     import dataclasses
-    from fused4bit_tpu.models.dense_baseline import DenseBlock, DenseTransformer
+    from fused4bit.models.dense_baseline import DenseBlock, DenseTransformer
 
     dt = jnp.bfloat16
     blocks = []

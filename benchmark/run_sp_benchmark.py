@@ -5,14 +5,14 @@ The long-context scale-out axis (SURVEY §2.5 SP row): attention with the
 sequence dim sharded over a `seq` mesh axis. For each ring size P this
 script runs both ring variants — bf16 K/V and the PACKED-INT4-cache ring
 (`parallel.sequence`) — verifies them against the single-device golden, and
-records the analytic ICI accounting that makes the packed ring the right
+records the analytic interconnect accounting that makes the packed ring the right
 design: each hop moves u8 codes + f32 scales instead of bf16 K/V, ~3.5x
 fewer bytes at D=128.
 
-On a single chip / CPU this validates the sharded path on a virtual mesh
+On one device or the CPU this validates the sharded path on a virtual mesh
 (JAX_PLATFORMS=cpu + --xla_force_host_platform_device_count=8) and records
-interpret-ish latencies for shape comparison only; on a real pod slice the
-same script measures true ICI scaling.
+CPU latencies for shape comparison only; on several GPUs the same script
+measures true interconnect scaling.
 
 Usage:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -52,15 +52,15 @@ def main(argv=None):
     p.add_argument("--head-dim", type=int, default=64)
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--virtual", action="store_true")
-    p.add_argument("--out", default="benchmark/results/sp_scaling.json")
+    p.add_argument("--out", default="sp_scaling.json")
     args = p.parse_args(argv)
 
     if args.virtual:
         jax.config.update("jax_platforms", "cpu")
 
-    from fused4bit_tpu.layers.kv_cache import QuantizedKVCache
-    from fused4bit_tpu.parallel.mesh import make_mesh
-    from fused4bit_tpu.parallel.sequence import (
+    from fused4bit.layers.kv_cache import QuantizedKVCache
+    from fused4bit.parallel.mesh import make_mesh
+    from fused4bit.parallel.sequence import (
         ring_attention,
         ring_attention_quantized,
     )
@@ -122,7 +122,7 @@ def main(argv=None):
             }
             print(
                 f"P={p_sz} {name:<10} rel={rel:.2e} "
-                f"ICI/hop={kv_bytes_hop/1e3:.1f} KB x{hops} hops"
+                f"link/hop={kv_bytes_hop/1e3:.1f} KB x{hops} hops"
             )
         if p_sz > 1:
             row["ici_ratio_bf16_over_int4"] = round(
@@ -136,9 +136,8 @@ def main(argv=None):
         "backend": jax.default_backend(),
         "protocol": (
             "verify vs single-device same-cache golden; analytic per-device "
-            "ICI accounting (wall_ms on a virtual CPU mesh is NOT a TPU "
-            "latency — correctness + byte-model evidence, like "
-            "ep_scaling.json)"
+            "interconnect accounting (wall_ms on a virtual CPU mesh is not "
+            "a device latency — correctness + byte-model evidence)"
         ),
         "results": results,
     }

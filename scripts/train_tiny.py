@@ -21,9 +21,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-# CPU by default (reproducible fixture, no chip needed). The h>=256 quality
-# fixture trains on the TPU backend instead: CPU measured ~1 step/min at
-# h=256 (VERDICT r2 item 6), the TPU runs the same script in minutes.
+# CPU by default (reproducible fixture, no accelerator needed). The h>=256
+# quality fixtures train faster on an accelerator (TRAIN_TINY_BACKEND=gpu):
+# the CPU takes about a minute per step at h=256.
 if os.environ.get("TRAIN_TINY_BACKEND", "cpu") == "cpu":
     jax.config.update("jax_platforms", "cpu")
 
@@ -31,10 +31,10 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import optax  # noqa: E402
 
-from fused4bit_tpu.models.config import ModelConfig, MoEConfig  # noqa: E402
-from fused4bit_tpu.models.dense_baseline import dense_from_quantized  # noqa: E402
-from fused4bit_tpu.models.safetensors_io import save_safetensors  # noqa: E402
-from fused4bit_tpu.models.transformer import QuantizedTransformer  # noqa: E402
+from fused4bit.models.config import ModelConfig, MoEConfig  # noqa: E402
+from fused4bit.models.dense_baseline import dense_from_quantized  # noqa: E402
+from fused4bit.models.safetensors_io import save_safetensors  # noqa: E402
+from fused4bit.models.transformer import QuantizedTransformer  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE_DIR = os.environ.get(
@@ -58,9 +58,9 @@ TINY_TRAINED = ModelConfig(
 )
 
 SEQ, STEPS, LR = 128, int(os.environ.get("TRAIN_TINY_STEPS", "1000")), 3e-3
-# The jitted train step's peak HBM is ~linear in hidden*batch and already
-# ~15G at h256/batch16 on the bench chip (h384/batch16 OOMs at 22.4G needing
-# 15.75G); larger variants drop the batch instead.
+# The jitted train step's peak device memory is ~linear in hidden*batch
+# (about 15 GB at h256/batch16); larger variants on smaller devices drop the
+# batch instead.
 BATCH = int(os.environ.get("TRAIN_TINY_BATCH", "16"))
 FIXTURE_NAME = os.environ.get("TRAIN_TINY_NAME", "tiny_trained")
 
@@ -68,17 +68,14 @@ FIXTURE_NAME = os.environ.get("TRAIN_TINY_NAME", "tiny_trained")
 def load_corpus() -> np.ndarray:
     """Real English text: the repo's documentation, byte tokens.
 
-    The committed h=128 fixture trained on the first seven paths (its
-    corpus is snapshotted next to the fixture, so retraining changes
-    nothing for it); the h>=256 fixtures add the rest — the round-5 h256
+    The committed fixtures' corpora are snapshotted next to them
+    (`tests/fixtures/*.corpus`), so the documents read here only matter
+    for a new fixture. The h>=256 fixtures trained on more text: an h256
     run on the small corpus overfit hard (train 0.31 vs held-out 2.04
     nll/byte at 1500 steps), so bigger models get more text and fewer
     steps (TRAIN_TINY_STEPS)."""
-    paths = ["README.md", "AGENTS.md", "SURVEY.md", "docs/tpu-guide.md",
-             "benchmark/README.md", "NOTES_r1.md", "PARITY.md",
-             "docs/operations-guide.md", "docs/api-reference.md",
-             "NOTES_r2.md", "NOTES_r3.md", "NOTES_r4.md", "BASELINE.md",
-             "VERDICT.md", "ADVICE.md"]
+    paths = ["README.md", "AGENTS.md", "SURVEY.md", "benchmark/README.md",
+             "PARITY.md", "docs/operations-guide.md", "docs/api-reference.md"]
     text = "\n\n".join(
         open(os.path.join(REPO, p), errors="ignore").read()
         for p in paths if os.path.exists(os.path.join(REPO, p))

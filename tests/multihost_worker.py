@@ -48,9 +48,9 @@ def globalize(a, mesh, spec):
 
 def run_ep(mesh_devices):
     from jax.sharding import Mesh
-    from fused4bit_tpu.layers.moe import simulate_router_logits, topk_route
-    from fused4bit_tpu.parallel.expert_parallel import moe_ep_replicated
-    from fused4bit_tpu.quant import QuantizedTensor, dequantize, quantize
+    from fused4bit.layers.moe import simulate_router_logits, topk_route
+    from fused4bit.parallel.expert_parallel import moe_ep_replicated
+    from fused4bit.quant import QuantizedTensor, dequantize, quantize
 
     mesh = Mesh(mesh_devices.reshape(8), ("expert",))
     E, K, N, T, TOPK = 8, 128, 256, 17, 2
@@ -88,9 +88,9 @@ def run_ep(mesh_devices):
 
 def run_model(mesh_devices):
     from jax.sharding import Mesh
-    from fused4bit_tpu.models.config import flagship_model_config
-    from fused4bit_tpu.models.transformer import QuantizedTransformer
-    from fused4bit_tpu.parallel.sharded_model import (
+    from fused4bit.models.config import flagship_model_config
+    from fused4bit.models.transformer import QuantizedTransformer
+    from fused4bit.parallel.sharded_model import (
         model_pspecs, sharded_decode_step,
     )
 
@@ -134,7 +134,7 @@ def main():
     coord, num, pid, phase = (
         sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
     )
-    from fused4bit_tpu.parallel.multihost import initialize, is_multihost
+    from fused4bit.parallel.multihost import initialize, is_multihost
 
     assert initialize(coord, num, pid)
     assert is_multihost(), "process_count must be > 1"

@@ -9,9 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fused4bit_tpu.quant import quantize
-from fused4bit_tpu.utils.benchmark import BenchmarkResult, print_table, time_fn, time_fn_scan
-from fused4bit_tpu.utils.roofline import TPU_V5E, linear_roofline
+from fused4bit.quant import quantize
+from fused4bit.utils.benchmark import BenchmarkResult, print_table, time_fn, time_fn_scan
+from fused4bit.utils.roofline import chip_spec, linear_roofline
+
+H100 = chip_spec("NVIDIA H100 80GB HBM3")
 
 
 class TestTimers:
@@ -29,25 +31,31 @@ class TestTimers:
 
 class TestRoofline:
     def test_memory_bound_decode(self):
-        rep = linear_roofline(1, 4096, 11008)
+        rep = linear_roofline(1, 4096, 11008, chip=H100)
         assert rep.bound == "memory"
         # bytes: x 4096*2 + packed 11008*2048 + scales/zp 8*11008 + out 11008*2
         assert rep.bytes_moved == 4096 * 2 + 11008 * 2048 + 8 * 11008 + 11008 * 2
         assert rep.flops == 2 * 4096 * 11008
 
     def test_compute_bound_prefill(self):
-        rep = linear_roofline(8192, 4096, 11008)
+        rep = linear_roofline(8192, 4096, 11008, chip=H100)
         assert rep.bound == "compute"
 
     def test_measured_fields(self):
-        rep = linear_roofline(1, 4096, 11008, measured_s=100e-6)
+        rep = linear_roofline(1, 4096, 11008, chip=H100, measured_s=100e-6)
         assert rep.achieved_gbps is not None
         assert 0 < rep.pct_of_sol <= 100 or rep.pct_of_sol > 0
 
     def test_sol_latency_sane(self):
-        rep = linear_roofline(1, 4096, 11008, chip=TPU_V5E)
-        # ~22.6MB at 819GB/s ≈ 28us
-        assert 20 < rep.sol_latency_us < 40
+        rep = linear_roofline(1, 4096, 11008, chip=H100)
+        # ~22.6MB at 3350 GB/s ≈ 6.7us
+        assert 5 < rep.sol_latency_us < 9
+
+    def test_unknown_device_is_an_error(self):
+        with pytest.raises(KeyError, match="no peak rates"):
+            chip_spec("Some Other Accelerator")
+        with pytest.raises(KeyError):
+            linear_roofline(1, 64, 64)     # this CPU is not in the table
 
 
 class TestResults:
@@ -69,7 +77,7 @@ class TestResults:
 
     def test_forward_no_nan_sweep(self, rng):
         # reference test_benchmark.py:33-53: shapes + no-NaN across sizes
-        from fused4bit_tpu.ops.int4_matmul import int4_matmul
+        from fused4bit.ops.int4_matmul import int4_matmul
 
         for n, k in [(256, 512), (512, 1024)]:
             qt = quantize(jnp.asarray(rng.standard_normal((n, k)), jnp.float32))
@@ -83,7 +91,7 @@ class TestResults:
 class TestProfiling:
     def test_stopwatch(self):
         import time as _t
-        from fused4bit_tpu.utils.profiling import Stopwatch
+        from fused4bit.utils.profiling import Stopwatch
 
         sw = Stopwatch()
         with sw.section("a"):
@@ -95,13 +103,13 @@ class TestProfiling:
         assert sw.sections["a"] >= 0.01
 
     def test_trace_degrades_gracefully(self, tmp_path):
-        from fused4bit_tpu.utils.profiling import trace
+        from fused4bit.utils.profiling import trace
 
         with trace(str(tmp_path / "prof")):
             _ = jnp.ones((8, 8)) @ jnp.ones((8, 8))
 
     def test_annotate(self):
-        from fused4bit_tpu.utils.profiling import annotate
+        from fused4bit.utils.profiling import annotate
 
         with annotate("region"):
             _ = jnp.ones((4,)) + 1

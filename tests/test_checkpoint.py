@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fused4bit_tpu.layers.linear import QuantizedLinear
-from fused4bit_tpu.models.config import flagship_model_config
-from fused4bit_tpu.models.transformer import QuantizedTransformer
-from fused4bit_tpu.quant import quantize
-from fused4bit_tpu.utils import checkpoint
+from fused4bit.layers.linear import QuantizedLinear
+from fused4bit.models.config import flagship_model_config
+from fused4bit.models.transformer import QuantizedTransformer
+from fused4bit.quant import quantize
+from fused4bit.utils import checkpoint
 
 
 class TestCheckpoint:
@@ -43,8 +43,8 @@ class TestCheckpoint:
         under the SAME mesh with explicit shardings, and verify bit-identical
         leaves + identical decode logits — the case that actually breaks in
         practice (VERDICT r2 item 8)."""
-        from fused4bit_tpu.parallel.mesh import make_mesh
-        from fused4bit_tpu.parallel.sharded_model import (
+        from fused4bit.parallel.mesh import make_mesh
+        from fused4bit.parallel.sharded_model import (
             model_pspecs, place_model,
         )
         from jax.sharding import NamedSharding
@@ -71,8 +71,8 @@ class TestCheckpoint:
         """Save under an 8-device (2 dp x 4 ep) mesh, restore under a
         4-device (1 dp x 4 ep) mesh: Orbax reshards; values and compute
         must be unchanged."""
-        from fused4bit_tpu.parallel.mesh import make_mesh
-        from fused4bit_tpu.parallel.sharded_model import (
+        from fused4bit.parallel.mesh import make_mesh
+        from fused4bit.parallel.sharded_model import (
             model_pspecs, place_model, sharded_decode_step,
         )
         from jax.sharding import NamedSharding
@@ -102,7 +102,6 @@ class TestCheckpoint:
         want, _ = model(toks, caches, pos)
         got, _ = sharded_decode_step(
             restored, mesh4, toks, model.init_cache(cfg, b, 16), pos,
-            interpret=True,
         )
         np.testing.assert_allclose(
             np.asarray(got, np.float32), np.asarray(want, np.float32),
@@ -121,7 +120,7 @@ class TestElasticLoop:
 
     def test_uninterrupted_matches_plain_loop(self, tmp_path):
         import jax.numpy as jnp
-        from fused4bit_tpu.utils.elastic import elastic_loop
+        from fused4bit.utils.elastic import elastic_loop
 
         init = {"w": jnp.zeros((4,), jnp.float32), "n": jnp.int32(0)}
         got, resumed = elastic_loop(
@@ -139,7 +138,7 @@ class TestElasticLoop:
         """Kill the loop mid-run (exception past the last save); a rerun
         resumes from the newest checkpoint and lands on the same state."""
         import jax.numpy as jnp
-        from fused4bit_tpu.utils.elastic import elastic_loop, latest_step
+        from fused4bit.utils.elastic import elastic_loop, latest_step
 
         init = {"w": jnp.zeros((4,), jnp.float32), "n": jnp.int32(0)}
         ckdir = str(tmp_path / "ck")
@@ -170,7 +169,7 @@ class TestElasticLoop:
         """A step that fails once then succeeds: the loop rolls back to the
         last checkpoint and completes with the correct final state."""
         import jax.numpy as jnp
-        from fused4bit_tpu.utils.elastic import elastic_loop
+        from fused4bit.utils.elastic import elastic_loop
 
         init = {"w": jnp.zeros((4,), jnp.float32), "n": jnp.int32(0)}
         failed = {"done": False}
@@ -178,7 +177,7 @@ class TestElasticLoop:
         def flaky(state, i):
             if i == 5 and not failed["done"]:
                 failed["done"] = True
-                raise RuntimeError("tunnel reset")
+                raise RuntimeError("connection reset")
             return self._step(state, i)
 
         got, _ = elastic_loop(
@@ -191,7 +190,7 @@ class TestElasticLoop:
         np.testing.assert_array_equal(np.asarray(got["w"]), np.asarray(want["w"]))
 
     def test_prune_keeps_newest(self, tmp_path):
-        from fused4bit_tpu.utils.elastic import elastic_loop, latest_step
+        from fused4bit.utils.elastic import elastic_loop, latest_step
         import jax.numpy as jnp, os
 
         init = {"w": jnp.zeros((2,), jnp.float32), "n": jnp.int32(0)}

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fused4bit_tpu.models.config import flagship_model_config
-from fused4bit_tpu.models.convert import convert_checkpoint, quantize_dense_2d
-from fused4bit_tpu.quant import dequantize, quantize
+from fused4bit.models.config import flagship_model_config
+from fused4bit.models.convert import convert_checkpoint, quantize_dense_2d
+from fused4bit.quant import dequantize, quantize
 
 
 def synthetic_checkpoint(cfg, rng):
@@ -65,7 +65,7 @@ class TestConvert:
 class TestFlaxCompat:
     def test_quantized_dense(self, rng):
         import flax.linen as nn  # noqa: F401
-        from fused4bit_tpu.layers.flax_compat import QuantizedDense
+        from fused4bit.layers.flax_compat import QuantizedDense
 
         m = QuantizedDense(features=64)
         x = jnp.asarray(rng.standard_normal((4, 128)), jnp.float32)
@@ -77,8 +77,8 @@ class TestFlaxCompat:
         assert qt.packed.dtype == jnp.uint8
 
     def test_quantized_dense_bias_and_quality(self, rng):
-        from fused4bit_tpu.layers.flax_compat import QuantizedDense
-        from fused4bit_tpu.quant import dequantize
+        from fused4bit.layers.flax_compat import QuantizedDense
+        from fused4bit.quant import dequantize
 
         m = QuantizedDense(features=32, use_bias=True)
         x = jnp.asarray(rng.standard_normal((8, 64)), jnp.float32)
@@ -99,9 +99,9 @@ class TestEndToEnd:
         import jax
         if len(jax.devices()) < 8:
             pytest.skip("needs 8 virtual devices")
-        from fused4bit_tpu.parallel.mesh import make_mesh
-        from fused4bit_tpu.parallel.sharded_model import place_model
-        from fused4bit_tpu.serving.engine import GenerationRequest, ServingEngine
+        from fused4bit.parallel.mesh import make_mesh
+        from fused4bit.parallel.sharded_model import place_model
+        from fused4bit.serving.engine import GenerationRequest, ServingEngine
 
         cfg = flagship_model_config("tiny")  # 4 experts
         params = synthetic_checkpoint(cfg, rng)
@@ -131,7 +131,7 @@ class TestSafetensorsIO:
     """Native reader/writer vs the reference `safetensors` package."""
 
     def test_roundtrip_all_dtypes(self, rng, tmp_path):
-        from fused4bit_tpu.models.safetensors_io import (
+        from fused4bit.models.safetensors_io import (
             load_safetensors, save_safetensors,
         )
 
@@ -150,7 +150,7 @@ class TestSafetensorsIO:
 
     def test_cross_validated_against_reference_lib(self, rng, tmp_path):
         st = pytest.importorskip("safetensors.numpy")
-        from fused4bit_tpu.models.safetensors_io import (
+        from fused4bit.models.safetensors_io import (
             load_safetensors, save_safetensors,
         )
 
@@ -172,7 +172,7 @@ class TestSafetensorsIO:
     def test_bf16_upcast(self, tmp_path):
         st = pytest.importorskip("safetensors.numpy")
         import jax
-        from fused4bit_tpu.models.safetensors_io import load_safetensors
+        from fused4bit.models.safetensors_io import load_safetensors
 
         vals = jnp.asarray([[1.5, -2.25, 3.0, 0.0078125] * 32], jnp.bfloat16)
         import ml_dtypes
@@ -233,7 +233,7 @@ class TestTrainedFixture:
 
     @pytest.mark.slow
     def test_h256_fixture_tighter_gates(self):
-        """The TPU-trained h=256 fixture (15-doc corpus, steps selected by
+        """The trained h=256 fixture (15-doc corpus, steps selected by
         held-out NLL) must clear TIGHTER gates than h128: quantization noise
         shrinks as hidden width grows (error averages over more lanes), and
         the committed artifact quality_trained_h256.json records nll_delta

@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fused4bit_tpu.models.config import flagship_model_config
-from fused4bit_tpu.quant.core import dequantize, quantize
-from fused4bit_tpu.quant.equalize import (
+from fused4bit.models.config import flagship_model_config
+from fused4bit.quant.core import dequantize, quantize
+from fused4bit.quant.equalize import (
     _dense_from_params,
     awq_equalize_params,
     awq_site_scale,
@@ -110,7 +110,7 @@ class TestEqualize:
         """End-to-end: convert_checkpoint(awq_tokens=...) produces a model
         whose logits track the dense reference at least as well as the
         plain conversion on an outlier-heavy checkpoint."""
-        from fused4bit_tpu.models.convert import convert_checkpoint
+        from fused4bit.models.convert import convert_checkpoint
 
         params = _tiny_params(cfg, seed=2, outlier=6)
         toks = (np.arange(32, dtype=np.int32) * 7).reshape(2, 16) % cfg.vocab_size

@@ -2,7 +2,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from fused4bit_tpu.quant.fp4 import (
+from fused4bit.quant.fp4 import (
     E2M1_VALUES,
     dequantize_fp4,
     fp4_matmul,

@@ -2,8 +2,9 @@
 
 Mirrors `tests/test_correctness.py:189-253` (CUDA-vs-reference) with the same
 tolerance ladder: atol 1e-3 for small/batched shapes, 1e-2 for large shapes
-(f32 accumulation-order differences). On CPU the Pallas kernel runs in
-interpreter mode; on TPU the same tests exercise the compiled kernel.
+(f32 accumulation-order differences). Wrapper tests run the plain path on the
+CPU; tests that pass ``interpret=True`` run the Triton-route Pallas kernel in
+the interpreter.
 """
 import dataclasses
 
@@ -12,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fused4bit_tpu.layers.linear import QuantizedLinear
-from fused4bit_tpu.ops.int4_matmul import int4_matmul
-from fused4bit_tpu.quant import quantize, reference_linear_qt
+from fused4bit.layers.linear import QuantizedLinear
+from fused4bit.ops.int4_matmul import int4_matmul
+from fused4bit.quant import quantize, reference_linear_qt
 
 
 def randw(rng, *shape):
@@ -141,8 +142,11 @@ class TestQuantizedLinear:
         assert dense_bytes / layer.nbytes >= 7.5
 
     def test_per_group_falls_back_to_reference_path(self, rng):
+        # use_kernel=False is the explicit dequantize-then-matmul path
         w = randw(rng, 64, 256)
-        layer = QuantizedLinear.from_dense(w, granularity="per_group", group_size=64)
+        layer = QuantizedLinear.from_dense(
+            w, granularity="per_group", group_size=64, use_kernel=False
+        )
         x = randw(rng, 2, 256)
         np.testing.assert_allclose(
             np.asarray(layer(x)),
@@ -151,93 +155,26 @@ class TestQuantizedLinear:
         )
 
 
-class TestInt4MatmulA8:
-    """w4a8 turbo mode: integer MXU path with dynamic activation quant."""
-
-    def test_matches_reference_within_a8_tolerance(self, rng):
-        from fused4bit_tpu.ops.int4_matmul import int4_matmul_a8
-
-        w = randw(rng, 128, 512)
-        x = randw(rng, 8, 512)
-        qt = quantize(w)
-        got = int4_matmul_a8(x, qt)
-        want = reference_linear_qt(x, qt)
-        rel = jnp.max(jnp.abs(got - want)) / jnp.max(jnp.abs(want))
-        assert float(rel) < 0.02  # int8 activation quantization error
-
-    def test_shapes_and_dtype(self, rng):
-        from fused4bit_tpu.ops.int4_matmul import int4_matmul_a8
-
-        w = randw(rng, 96, 256)
-        qt = quantize(w)
-        x = jnp.asarray(rng.standard_normal((2, 3, 256)), jnp.bfloat16)
-        y = int4_matmul_a8(x, qt)
-        assert y.shape == (2, 3, 96)
-        assert y.dtype == jnp.bfloat16
-
-    def test_integer_path_is_deterministic(self, rng):
-        from fused4bit_tpu.ops.int4_matmul import int4_matmul_a8
-
-        w = randw(rng, 64, 256)
-        qt = quantize(w)
-        x = randw(rng, 4, 256)
-        a = int4_matmul_a8(x, qt)
-        b = int4_matmul_a8(x, qt)
-        assert jnp.array_equal(a, b)
-
-    def test_fused_quant_matches_host_quant(self, rng):
-        """In-kernel activation quantization (the decode default) runs the
-        same f32 amax/round/clip math as the host-op path, fused into the
-        Pallas prologue. The two are separately compiled XLA programs, so we
-        assert equality to well below ONE int8 code step (a real quantization
-        divergence would show up at sx*s_col ~ 1e-3; observed compile-context
-        noise is ~1e-5, single-ulp f32)."""
-        from fused4bit_tpu.ops.int4_matmul import int4_matmul_a8
-
-        for m, n, k in [(8, 512, 256), (3, 256, 128), (33, 384, 512)]:
-            w = randw(rng, n, k)
-            qt = quantize(w)
-            for dt in (jnp.float32, jnp.bfloat16):
-                x = jnp.asarray(rng.standard_normal((m, k)), dt)
-                host = np.asarray(
-                    int4_matmul_a8(x, qt, fuse_quant=False), np.float32
-                )
-                fused = np.asarray(
-                    int4_matmul_a8(x, qt, fuse_quant=True), np.float32
-                )
-                tol = 1e-4 * float(np.abs(host).max())
-                np.testing.assert_allclose(
-                    fused, host, rtol=0, atol=tol,
-                    err_msg=str((m, n, k, dt)),
-                )
-
-
 class TestInt4MatmulPerGroup:
     """per_group granularity in the fused kernel (production INT4 standard)."""
 
     def test_matches_reference(self, rng):
-        from fused4bit_tpu.ops.int4_matmul import int4_matmul_per_group
-
         w = randw(rng, 128, 512)  # K/2=256, group_size=128 -> 2 groups/half
         qt = quantize(w, granularity="per_group", group_size=128, layout="planar")
         x = randw(rng, 8, 512)
-        got = int4_matmul_per_group(x, qt)
+        got = int4_matmul(x, qt, interpret=True)
         want = reference_linear_qt(x, qt)
         np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-3)
 
     def test_matches_reference_many_groups(self, rng):
-        """Multi-group and ODD group-count shapes (the flagship
-        down-projection has gh=43 — odd — which exercises the expansion
-        design's group-count padding)."""
-        from fused4bit_tpu.ops.int4_matmul import int4_matmul_per_group
-
+        """Multi-group and ODD group-count shapes."""
         for n, k in [(64, 1024), (96, 768)]:  # gh = 4 and gh = 3 per half
             w = randw(rng, n, k)
             qt = quantize(
                 w, granularity="per_group", group_size=128, layout="planar"
             )
             x = randw(rng, 8, k)
-            got = int4_matmul_per_group(x, qt)
+            got = int4_matmul(x, qt, interpret=True)
             want = reference_linear_qt(x, qt)
             np.testing.assert_allclose(
                 np.asarray(got), np.asarray(want), atol=2e-3,
@@ -251,12 +188,12 @@ class TestInt4MatmulPerGroup:
         w = jnp.asarray(w)
         x = randw(rng, 4, 512)
         exact = np.asarray(x @ w.T)
-        from fused4bit_tpu.ops.int4_matmul import int4_matmul, int4_matmul_per_group
+        from fused4bit.ops.int4_matmul import int4_matmul
 
         qr = quantize(w, granularity="per_row", layout="planar")
         qg = quantize(w, granularity="per_group", group_size=128, layout="planar")
         err_row = np.max(np.abs(np.asarray(int4_matmul(x, qr)) - exact))
-        err_grp = np.max(np.abs(np.asarray(int4_matmul_per_group(x, qg)) - exact))
+        err_grp = np.max(np.abs(np.asarray(int4_matmul(x, qg, interpret=True)) - exact))
         assert err_grp < err_row
 
     def test_quantized_linear_dispatches_to_group_kernel(self, rng):
@@ -270,18 +207,14 @@ class TestInt4MatmulPerGroup:
         )
 
     def test_bf16(self, rng):
-        from fused4bit_tpu.ops.int4_matmul import int4_matmul_per_group
-        from fused4bit_tpu.quant.core import dequantize
+        from fused4bit.quant.core import dequantize
 
         w = randw(rng, 128, 256)
         qt = quantize(w, granularity="per_group", group_size=128, layout="planar")
         x = randw(rng, 4, 256).astype(jnp.bfloat16)
-        got = int4_matmul_per_group(x, qt)
-        # The round-3 kernel's numerical contract in bf16 compute is exactly
-        # "dequantize to bf16, then matmul" (scales expand through an exact
-        # 0/1 selection dot; the affine dequant rounds each weight to bf16
-        # once) — match that reference tightly, and the f32 golden loosely
-        # (one extra bf16 rounding vs the old f32-partial formulation).
+        got = int4_matmul(x, qt, interpret=True)
+        # bf16 compute rounds x only; the scale multiplies the float32
+        # partial. Both the bf16-dequant product and the f32 golden bound it.
         want_bf16 = jnp.dot(
             x.astype(jnp.float32),
             dequantize(qt, dtype=jnp.bfloat16).astype(jnp.float32).T,
@@ -300,20 +233,16 @@ class TestInt4MatmulPerGroup:
 
 
 class TestInt4MatmulPerGroupBP:
-    """Batched-partials per-group kernel (layout="planar_groups"): the
-    round-5 structure that runs per-group at per_row speed (the group axis
-    is a dot_general batch dim over raw nibbles; scales apply to the
-    [Gh, TM, TN] partials). Device-measured 1.01-1.08x per_row at the
-    flagship shapes vs 2.7-2.9x for the planar expansion-dot kernel."""
+    """Per-group weights in the group-major layout (layout="planar_groups"):
+    the kernel reads one group per K step, scales apply to each step's
+    float32 partial."""
 
     def _check(self, rng, n, k, m, gs=128, atol=1e-3, dtype=jnp.float32):
-        from fused4bit_tpu.ops.int4_matmul import int4_matmul_per_group
-
         w = randw(rng, n, k)
         qt = quantize(w, granularity="per_group", group_size=gs,
                       layout="planar_groups")
         x = randw(rng, m, k).astype(dtype)
-        got = int4_matmul_per_group(x, qt)
+        got = int4_matmul(x, qt, interpret=True)
         want = reference_linear_qt(x.astype(jnp.float32), qt)
         np.testing.assert_allclose(
             np.asarray(got, np.float32), np.asarray(want), atol=atol,
@@ -325,23 +254,19 @@ class TestInt4MatmulPerGroupBP:
         self._check(rng, 128, 512, 8)
 
     def test_matches_reference_odd_group_count(self, rng):
-        # gh = 3 per half (the flagship down-projection's gh=43 is odd too;
-        # the batch dim takes any size — no padding workaround needed)
+        # gh = 3 per half (odd group counts need no padding)
         self._check(rng, 96, 768, 8)
 
     def test_matches_reference_multi_tile_and_row_pad(self, rng):
-        # n > tile_n forces multiple grid columns; n % 256 != 0 exercises
-        # the n-pad path (padded scale rows contribute exact zeros); m=20
-        # exercises the m-pad path
+        # several n-blocks, a ragged last n-block and a ragged m-block
         self._check(rng, 320, 512, 20, atol=2e-3)
 
     def test_group_size_256(self, rng):
         self._check(rng, 64, 1024, 4, gs=256)
 
     def test_bf16(self, rng):
-        # raw nibbles are exact in bf16 and partials accumulate in f32, so
-        # bf16 compute only rounds x and the dot products — tighter than the
-        # expansion kernel's dequantize-to-bf16 contract
+        # (q - zp) is exact in bf16 and partials accumulate in f32, so bf16
+        # compute only rounds x
         self._check(rng, 128, 512, 8, dtype=jnp.bfloat16, atol=0.12)
 
     def test_planar_groups_is_default_for_per_group_layers(self, rng):
@@ -356,34 +281,6 @@ class TestInt4MatmulPerGroupBP:
             np.asarray(reference_linear_qt(x, layer.weight)),
             atol=1e-3,
         )
-
-    def test_a8_variant_matches_reference_within_activation_error(self, rng):
-        """w4a8 batched-partials per-group kernel: exact int32 partials,
-        so the only deviation from the f32 golden is the int8 activation
-        quantization (~1% rel, the int4_matmul_a8 contract)."""
-        from fused4bit_tpu.ops.int4_matmul import int4_matmul_per_group_a8
-
-        for n, k, m in [(256, 512, 8), (96, 768, 33)]:  # odd gh + m-pad
-            w = randw(rng, n, k)
-            qt = quantize(w, granularity="per_group", group_size=128,
-                          layout="planar_groups")
-            x = randw(rng, m, k)
-            got = np.asarray(int4_matmul_per_group_a8(x, qt))
-            want = np.asarray(reference_linear_qt(x, qt))
-            rel = np.linalg.norm(got - want) / np.linalg.norm(want)
-            assert rel < 0.015, (n, k, m, rel)
-
-    def test_a8_via_layer_activation_int8(self, rng):
-        w = randw(rng, 128, 512)
-        layer = QuantizedLinear.from_dense(
-            w, granularity="per_group", group_size=128
-        )
-        layer = dataclasses.replace(layer, activation="int8")
-        x = randw(rng, 4, 512)
-        got = np.asarray(layer(x))
-        want = np.asarray(reference_linear_qt(x, layer.weight))
-        rel = np.linalg.norm(got - want) / np.linalg.norm(want)
-        assert rel < 0.015
 
     def test_padded_rows_layer(self, rng):
         """pad_rows on the rank-3 planar_groups layout pads the N (middle)
@@ -418,4 +315,145 @@ class TestPrefillDispatch:
             np.asarray(via_prefill),
             np.asarray(reference_linear_qt(x, qt)),
             atol=1e-3,
+        )
+
+
+class TestInt4Kernel:
+    """The Triton-route kernel in the Pallas interpreter against the golden:
+    ragged M and N, several K steps, per_row and per_group layouts."""
+
+    @pytest.mark.parametrize(
+        "m,n,k,gran,layout,gs",
+        [
+            (1, 64, 128, "per_row", "planar", 0),
+            (5, 100, 256, "per_row", "planar", 0),        # ragged n-block
+            (17, 48, 1024, "per_row", "planar", 0),       # 64-row m-block, 2 K steps
+            (8, 96, 512, "per_group", "planar", 128),
+            (20, 80, 768, "per_group", "planar_groups", 128),   # gh = 3
+            (3, 64, 1024, "per_group", "planar", 256),
+        ],
+    )
+    def test_matches_golden(self, rng, m, n, k, gran, layout, gs):
+        kw = dict(group_size=gs) if gs else {}
+        qt = quantize(randw(rng, n, k), granularity=gran, layout=layout, **kw)
+        x = randw(rng, m, k)
+        got = int4_matmul(x, qt, interpret=True)
+        assert got.shape == (m, n)
+        np.testing.assert_allclose(
+            np.asarray(got), np.asarray(reference_linear_qt(x, qt)), atol=2e-3
+        )
+
+    @pytest.mark.parametrize("gran", ["per_row", "per_group"])
+    def test_split_k_matches_golden(self, rng, gran):
+        import dataclasses as dc
+        from fused4bit.ops.int4_matmul import int4_kernel_call
+
+        qt = quantize(randw(rng, 48, 1024), granularity=gran, group_size=128)
+        stacked = dc.replace(
+            qt, packed=qt.packed[None], scales=qt.scales[None],
+            zero_points=qt.zero_points[None], shape=(1,) + tuple(qt.shape))
+        x = randw(rng, 5, 1024)
+        got = int4_kernel_call(
+            x, jnp.zeros((1,), jnp.int32), stacked, block_m=16, block_n=16,
+            block_kh=64, k_splits=4, num_warps=4, num_stages=2,
+            compute_dtype=jnp.float32, out_dtype=jnp.float32, interpret=True)
+        np.testing.assert_allclose(
+            np.asarray(got), np.asarray(reference_linear_qt(x, qt)), atol=2e-3
+        )
+
+    def test_bf16_matches_bf16_dequant_product(self, rng):
+        from fused4bit.quant.core import dequantize
+
+        qt = quantize(randw(rng, 64, 512))
+        x = randw(rng, 8, 512).astype(jnp.bfloat16)
+        got = int4_matmul(x, qt, interpret=True, out_dtype=jnp.float32)
+        want = jnp.dot(
+            x.astype(jnp.float32), dequantize(qt).T,
+            precision=jax.lax.Precision.HIGHEST,
+        )
+        # exact integer (q - zp) times bf16 x, f32 sums: only the order of
+        # the float32 additions differs
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-3)
+
+    def test_plain_path_matches_golden(self, rng):
+        from fused4bit.ops.int4_matmul import int4_matmul_plain
+
+        for gran in ("per_row", "per_group"):
+            qt = quantize(randw(rng, 96, 512), granularity=gran,
+                          layout="planar_groups" if gran == "per_group" else "planar")
+            x = randw(rng, 2, 3, 512)
+            np.testing.assert_allclose(
+                np.asarray(int4_matmul_plain(x, qt)),
+                np.asarray(reference_linear_qt(x, qt)), atol=1e-3,
+            )
+
+    def test_kernel_blocks(self):
+        from fused4bit.ops.int4_matmul import kernel_blocks
+
+        few = kernel_blocks(16, 1, 4096, 7168, 0)      # 14336 -> 4096 decode
+        many = kernel_blocks(16, 1, 32000, 2048, 0)    # LM head at decode
+        # fewer output blocks -> the K range splits over more programs
+        assert few["k_splits"] >= many["k_splits"] >= 1
+        grouped = kernel_blocks(16, 9, 4096, 7168, 128)
+        assert 128 % grouped["block_kh"] == 0
+        prefill = kernel_blocks(128, 40, 14336, 2048, 0)
+        assert prefill["k_splits"] == 1
+        for b in (few, many, grouped, prefill):
+            steps = (7168 if b is not many else 2048) // b["block_kh"]
+            assert steps % b["k_splits"] == 0
+            for key in ("block_n", "block_kh", "k_splits"):
+                assert b[key] & (b[key] - 1) == 0   # Triton blocks: powers of 2
+
+    def test_padded_layer_through_kernel(self, rng):
+        from fused4bit.ops.int4_matmul import int4_matmul as mm
+
+        layer = QuantizedLinear.from_dense(randw(rng, 100, 256)).padded_for_kernel()
+        assert layer.weight.out_dim % 128 == 0 and layer.out_dim == 100
+        x = randw(rng, 3, 256)
+        got = mm(x, layer.weight, interpret=True)[..., :100]
+        np.testing.assert_allclose(
+            np.asarray(got), np.asarray(layer(x)), atol=1e-3
+        )
+
+    @pytest.mark.parametrize(
+        "gran,layout",
+        [("per_tensor", "planar"), ("per_row", "interleaved"),
+         ("per_row", "block_planar")],
+    )
+    def test_weights_the_kernel_does_not_take_run_plain(self, rng, gran, layout):
+        from fused4bit.ops.int4_matmul import kernel_takes
+
+        qt = quantize(randw(rng, 32, 128), granularity=gran, layout=layout)
+        assert not kernel_takes(qt)
+        layer = QuantizedLinear(weight=qt)
+        x = randw(rng, 2, 128)
+        for lin in (layer, dataclasses.replace(layer, use_kernel=False)):
+            np.testing.assert_allclose(
+                np.asarray(lin(x)), np.asarray(reference_linear_qt(x, qt)),
+                atol=1e-3,
+            )
+
+
+@pytest.mark.gpu
+def test_kernel_compiled_on_gpu(gpu, rng):
+    """The compiled kernel on the card (chip_smoke.py phase 2 runs the same
+    check at Mixtral widths)."""
+    for gran, layout in (("per_row", "planar"), ("per_group", "planar_groups")):
+        qt = quantize(randw(rng, 1024, 2048), granularity=gran, layout=layout)
+        x = randw(rng, 8, 2048).astype(jnp.bfloat16)
+        got = int4_matmul(x, qt, out_dtype=jnp.float32)
+        want = reference_linear_qt(x.astype(jnp.float32), qt)
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   rtol=0, atol=1e-3 * float(jnp.abs(want).max()))
+
+
+def test_groups_straddling_halves_take_plain_path(rng):
+    """K/2 = 96 is no multiple of group 64: no K step of the kernel could
+    hold whole groups, so every mode takes the plain path."""
+    qt = quantize(randw(rng, 40, 192), granularity="per_group", group_size=64)
+    x = randw(rng, 3, 192)
+    for interpret in (None, True):
+        np.testing.assert_allclose(
+            np.asarray(int4_matmul(x, qt, interpret=interpret)),
+            np.asarray(reference_linear_qt(x, qt)), atol=1e-3,
         )

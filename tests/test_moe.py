@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fused4bit_tpu.layers.moe import (
+from fused4bit.layers.moe import (
     MoEINT4,
     QuantizedMoE,
     combine,
@@ -18,8 +18,8 @@ from fused4bit_tpu.layers.moe import (
     simulate_router_logits,
     topk_route,
 )
-from fused4bit_tpu.ops.grouped_matmul import grouped_int4_matmul
-from fused4bit_tpu.quant import dequantize, quantize
+from fused4bit.ops.grouped_matmul import grouped_int4_matmul
+from fused4bit.quant import dequantize, quantize
 
 
 def randw(rng, *shape):
@@ -202,40 +202,80 @@ class TestGroupedKernel:
         assert float(err) < 0.8
 
 
-class TestAutoMode:
-    """Auto mode selection is gated on modeled weight traffic (ADVICE r4),
-    with the measured envelope (mode_crossover.json: n_inner wins through
-    4.1x modeled traffic) hard-coded as the threshold."""
+class TestGroupedKernel:
+    """The Triton-route grouped kernel in the Pallas interpreter: each
+    program reads its expert from a mixed tile->expert map (empty experts,
+    several tiles per expert, trailing padding tiles)."""
 
-    def _pick(self, t_pad, e, tile_m=32, k=4096, n_pad=14336, x_b=2):
-        from fused4bit_tpu.ops.grouped_matmul import _pick_mode_and_tile_n
+    GIDS = [0, 0, 0, 2, 3, 3, 3, 3]   # expert 1 empty, last tiles padding
 
-        mode, _ = _pick_mode_and_tile_n(
-            t_pad, k, n_pad, e, x_b, tile_m, None, None
+    def _golden(self, xs, gids, qt, tile_m):
+        wd = dequantize(qt, dtype=jnp.float32)
+        xt = xs.reshape(len(gids), tile_m, -1).astype(jnp.float32)
+        return jnp.einsum(
+            "tmk,tnk->tmn", xt, wd[jnp.asarray(gids)],
+            precision=jax.lax.Precision.HIGHEST,
+        ).reshape(xs.shape[0], -1)
+
+    @pytest.mark.parametrize(
+        "gran,layout,n,k",
+        [
+            ("per_row", "planar", 96, 256),
+            ("per_group", "planar", 80, 512),
+            ("per_group", "planar_groups", 48, 768),
+        ],
+    )
+    def test_matches_golden(self, rng, gran, layout, n, k):
+        kw = dict(group_size=128) if gran == "per_group" else {}
+        qt = quantize(randw(rng, E, n, k), granularity=gran, layout=layout, **kw)
+        gids = jnp.asarray(self.GIDS, jnp.int32)
+        xs = randw(rng, len(self.GIDS) * 16, k)
+        got = grouped_int4_matmul(xs, gids, qt, tile_m=16, interpret=True)
+        np.testing.assert_allclose(
+            np.asarray(got), np.asarray(self._golden(xs, self.GIDS, qt, 16)),
+            atol=2e-3,
         )
-        return mode
 
-    def test_decode_size_picks_n_inner(self):
-        # Mixtral T=32: 10 tiles, 8 experts -> 1.25x traffic, measured 2x win
-        assert self._pick(320, 8) == "n_inner"
+    def test_plain_path_matches_golden(self, rng):
+        from fused4bit.ops.grouped_matmul import grouped_int4_matmul_plain
 
-    def test_mid_size_within_envelope_picks_n_inner(self):
-        # T=256: 24 tiles -> 3x traffic, measured 1.35x win
-        assert self._pick(768, 8) == "n_inner"
+        qt = quantize(randw(rng, E, 64, 256), layout="planar")
+        gids = jnp.asarray(self.GIDS, jnp.int32)
+        xs = randw(rng, len(self.GIDS) * 16, 256)
+        got = grouped_int4_matmul_plain(xs, gids, qt, 16, jnp.float32)
+        np.testing.assert_allclose(
+            np.asarray(got), np.asarray(self._golden(xs, self.GIDS, qt, 16)),
+            atol=1e-3,
+        )
 
-    def test_prefill_within_envelope_picks_n_inner(self):
-        # T=2048, tile_m=128: 33 tiles -> 4.1x traffic, measured 1.21x win
-        assert self._pick(4224, 8, tile_m=128) == "n_inner"
+    def test_bf16_end_to_end_through_dispatch(self, rng):
+        qt = quantize(randw(rng, E, N, K), layout="planar")
+        x = randw(rng, T, K).astype(jnp.bfloat16)
+        r = topk_route(randw(rng, T, E), TOPK, E)
+        plan = make_dispatch_plan(r, E, tile_m=16)
+        xs = dispatch(x, r, plan)
+        got = grouped_int4_matmul(xs, plan.tile_group_ids, qt, tile_m=16,
+                                  interpret=True)
+        assert got.dtype == jnp.bfloat16
+        want = self._golden(xs, np.asarray(plan.tile_group_ids), qt, 16)
+        np.testing.assert_allclose(np.asarray(got, np.float32),
+                                   np.asarray(want), atol=0.1, rtol=0.02)
 
-    def test_past_envelope_defers_to_traffic_model(self):
-        # 132 tiles / 8 experts -> 16.5x modeled weight traffic: beyond any
-        # measured n_inner win; auto must NOT pick it on a tiny-x dispatch
-        assert self._pick(4224, 8, tile_m=32) != "n_inner"
+    def test_groups_straddling_halves_take_plain_path(self, rng):
+        qt = quantize(randw(rng, E, 32, 192), granularity="per_group",
+                      group_size=64, layout="planar")  # K/2 = 96, not 64 | 96
+        gids = jnp.asarray(self.GIDS, jnp.int32)
+        xs = randw(rng, len(self.GIDS) * 16, 192)
+        got = MoEINT4(weight=qt)(xs, gids, tile_m=16, interpret=True)
+        np.testing.assert_allclose(
+            np.asarray(got), np.asarray(self._golden(xs, self.GIDS, qt, 16)),
+            atol=1e-3,
+        )
 
 
 class TestCapacityPlan:
     def test_capacity_layout_is_per_expert_blocks(self, rng):
-        from fused4bit_tpu.layers.moe import make_capacity_plan
+        from fused4bit.layers.moe import make_capacity_plan
 
         r = topk_route(randw(rng, T, E), TOPK, E)
         cap = 24
@@ -248,7 +288,7 @@ class TestCapacityPlan:
                 assert e_ * cap <= p_ < (e_ + 1) * cap
 
     def test_capacity_matches_dropless_with_ample_capacity(self, rng):
-        from fused4bit_tpu.layers.moe import make_capacity_plan
+        from fused4bit.layers.moe import make_capacity_plan
 
         w = randw(rng, E, N, K)
         qt = quantize(w, layout="planar")
@@ -261,7 +301,7 @@ class TestCapacityPlan:
                                 qt, tile_m=TILE_M), r, plan_d)
 
         cap = size = 72  # > any group, multiple of tile_m
-        from fused4bit_tpu.layers.moe import make_capacity_plan
+        from fused4bit.layers.moe import make_capacity_plan
         plan_c = make_capacity_plan(r, E, capacity=cap, tile_m=TILE_M)
         y_c = combine(
             grouped_int4_matmul(dispatch(x, r, plan_c), plan_c.tile_group_ids,
@@ -269,7 +309,7 @@ class TestCapacityPlan:
         np.testing.assert_allclose(np.asarray(y_c), np.asarray(y_d), atol=1e-3)
 
     def test_capacity_drops_overflow_gracefully(self, rng):
-        from fused4bit_tpu.layers.moe import make_capacity_plan
+        from fused4bit.layers.moe import make_capacity_plan
 
         w = randw(rng, E, N, K)
         qt = quantize(w, layout="planar")
@@ -286,68 +326,9 @@ class TestCapacityPlan:
         assert np.abs(arr[8:]).sum() == 0      # dropped tokens -> zero
 
 
-class TestGroupedA8:
-    def test_grouped_a8_matches_reference(self, rng):
-        from fused4bit_tpu.ops.grouped_matmul import grouped_int4_matmul_a8
-
-        w = randw(rng, E, N, K)
-        qt = quantize(w, layout="planar")
-        x = randw(rng, T, K)
-        r = topk_route(randw(rng, T, E), TOPK, E)
-        plan = make_dispatch_plan(r, E, tile_m=32)
-        xs = dispatch(x, r, plan)
-        got = grouped_int4_matmul_a8(xs, plan.tile_group_ids, qt, tile_m=32)
-        want = grouped_int4_matmul(xs, plan.tile_group_ids, qt, tile_m=32)
-        scale = float(jnp.max(jnp.abs(want)))
-        rel = float(jnp.max(jnp.abs(got - want))) / scale
-        assert rel < 0.02
-
-    def test_grouped_a8_fused_quant_matches_host_quant(self, rng):
-        """In-kernel activation quantize (shallow-K default) vs host-op
-        quantize: same math, equality to well below one int8 code step
-        (see ops.int4_matmul test of the same contract)."""
-        from fused4bit_tpu.ops.grouped_matmul import grouped_int4_matmul_a8
-
-        w = randw(rng, E, N, K)
-        qt = quantize(w, layout="planar")
-        x = randw(rng, T, K)
-        r = topk_route(randw(rng, T, E), TOPK, E)
-        plan = make_dispatch_plan(r, E, tile_m=32)
-        for dt in (jnp.float32, jnp.bfloat16):
-            xs = dispatch(x.astype(dt), r, plan)
-            host = np.asarray(grouped_int4_matmul_a8(
-                xs, plan.tile_group_ids, qt, tile_m=32, fuse_quant=False
-            ), np.float32)
-            fused = np.asarray(grouped_int4_matmul_a8(
-                xs, plan.tile_group_ids, qt, tile_m=32, fuse_quant=True
-            ), np.float32)
-            np.testing.assert_allclose(
-                fused, host, rtol=0, atol=1e-4 * float(np.abs(host).max())
-            )
-
-    def test_grouped_a8_end_to_end(self, rng):
-        from fused4bit_tpu.ops.grouped_matmul import grouped_int4_matmul_a8
-
-        w = randw(rng, E, N, K)
-        qt = quantize(w, layout="planar")
-        x = randw(rng, T, K)
-        r = topk_route(randw(rng, T, E), TOPK, E)
-        plan = make_dispatch_plan(r, E, tile_m=32)
-        xs = dispatch(x, r, plan)
-        y = grouped_int4_matmul_a8(xs, plan.tile_group_ids, qt, tile_m=32)
-        got = combine(y, r, plan)
-        wd = dequantize(qt, dtype=jnp.float32)
-        we = wd[r.expert_indices]
-        want = jnp.sum(
-            jnp.einsum("tk,tenk->ten", x.astype(jnp.float32), we)
-            * r.expert_weights[..., None], axis=1)
-        rel = float(jnp.max(jnp.abs(got - want))) / float(jnp.max(jnp.abs(want)))
-        assert rel < 0.03
-
-
 class TestObservability:
     def test_expert_load_stats(self, rng):
-        from fused4bit_tpu.layers.moe import expert_load_stats
+        from fused4bit.layers.moe import expert_load_stats
 
         r = topk_route(randw(rng, T, E), TOPK, E)
         stats = expert_load_stats(r)
@@ -356,7 +337,7 @@ class TestObservability:
         assert int(stats["dropped"]) == 0
 
     def test_expert_load_stats_drops(self):
-        from fused4bit_tpu.layers.moe import expert_load_stats
+        from fused4bit.layers.moe import expert_load_stats
 
         logits = jnp.zeros((20, E)).at[:, 0].set(50.0)
         r = topk_route(logits, 1, E)
@@ -366,7 +347,7 @@ class TestObservability:
 
 class TestMultihost:
     def test_initialize_noop_single_process(self):
-        from fused4bit_tpu.parallel.multihost import initialize, is_multihost
+        from fused4bit.parallel.multihost import initialize, is_multihost
 
         assert initialize() is False
         assert is_multihost() is False
@@ -374,8 +355,6 @@ class TestMultihost:
 
 class TestGroupedPerGroup:
     def test_grouped_per_group_matches_golden(self, rng):
-        from fused4bit_tpu.ops.grouped_matmul import grouped_int4_matmul_per_group
-
         E2, K2, N2 = 4, 512, 96  # K/2=256, groups of 128
         w = randw(rng, E2, N2, K2)
         qt = quantize(w, granularity="per_group", group_size=128, layout="planar")
@@ -383,7 +362,8 @@ class TestGroupedPerGroup:
         r = topk_route(randw(rng, T, E2), TOPK, E2)
         plan = make_dispatch_plan(r, E2, tile_m=TILE_M)
         xs = dispatch(x, r, plan)
-        got = grouped_int4_matmul_per_group(xs, plan.tile_group_ids, qt, tile_m=TILE_M)
+        got = grouped_int4_matmul(xs, plan.tile_group_ids, qt, tile_m=TILE_M,
+                                  interpret=True)
         wd = dequantize(qt, dtype=jnp.float32)
         nt = plan.t_pad // TILE_M
         xt = xs.reshape(nt, TILE_M, -1).astype(jnp.float32)
@@ -392,11 +372,9 @@ class TestGroupedPerGroup:
         np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-3)
 
     def test_grouped_per_group_bp_matches_golden(self, rng):
-        """Batched-partials grouped kernel (layout="planar_groups"): same
-        contract as the expansion kernel above, per_row-speed structure.
-        Covers odd group count (gh=3) and the n-pad path (N=96 < 256)."""
-        from fused4bit_tpu.ops.grouped_matmul import grouped_int4_matmul_per_group
-
+        """Group-major per-group weights (layout="planar_groups"): same
+        contract as the planar layout above. Covers an odd group count
+        (gh=3) and a ragged last n-block."""
         for E2, K2, N2 in [(4, 512, 96), (3, 768, 320)]:
             w = randw(rng, E2, N2, K2)
             qt = quantize(w, granularity="per_group", group_size=128,
@@ -405,8 +383,8 @@ class TestGroupedPerGroup:
             r = topk_route(randw(rng, T, E2), TOPK, E2)
             plan = make_dispatch_plan(r, E2, tile_m=TILE_M)
             xs = dispatch(x, r, plan)
-            got = grouped_int4_matmul_per_group(
-                xs, plan.tile_group_ids, qt, tile_m=TILE_M
+            got = grouped_int4_matmul(
+                xs, plan.tile_group_ids, qt, tile_m=TILE_M, interpret=True
             )
             wd = dequantize(qt, dtype=jnp.float32)
             nt = plan.t_pad // TILE_M
@@ -420,49 +398,11 @@ class TestGroupedPerGroup:
                 err_msg=str((E2, K2, N2)),
             )
 
-    def test_grouped_per_group_bp_a8_matches_golden(self, rng):
-        """w4a8 grouped batched-partials kernel: int32 partials exact, only
-        the int8 activation quantization separates it from the golden."""
-        import dataclasses as _dc
-        from fused4bit_tpu.ops.grouped_matmul import (
-            grouped_int4_matmul_per_group_a8,
-        )
-
-        E2, K2, N2 = 4, 512, 96
-        w = randw(rng, E2, N2, K2)
-        qt = quantize(w, granularity="per_group", group_size=128,
-                      layout="planar_groups")
-        x = randw(rng, T, K2)
-        r = topk_route(randw(rng, T, E2), TOPK, E2)
-        plan = make_dispatch_plan(r, E2, tile_m=32)
-        xs = dispatch(x, r, plan)
-        got = np.asarray(grouped_int4_matmul_per_group_a8(
-            xs, plan.tile_group_ids, qt, tile_m=32
-        ))
-        wd = dequantize(qt, dtype=jnp.float32)
-        nt = plan.t_pad // 32
-        xt = xs.reshape(nt, 32, -1).astype(jnp.float32)
-        want = np.asarray(jnp.einsum(
-            "tmk,tnk->tmn", xt, wd[plan.tile_group_ids],
-            precision=jax.lax.Precision.HIGHEST,
-        ).reshape(plan.t_pad, -1))
-        denom = np.linalg.norm(want)
-        assert denom > 0
-        assert np.linalg.norm(got - want) / denom < 0.015
-        # module dispatch with activation="int8"
-        mod = _dc.replace(
-            MoEINT4.from_dense(w, granularity="per_group", group_size=128),
-            activation="int8",
-        )
-        got2 = np.asarray(mod(xs, plan.tile_group_ids, tile_m=32))
-        np.testing.assert_allclose(got2, got, atol=1e-5)
-
     def test_moe_module_dispatches_per_group(self, rng):
         E2, K2, N2 = 4, 512, 96
         w = randw(rng, E2, N2, K2)
         mod = MoEINT4.from_dense(w, granularity="per_group", group_size=128)
-        # from_dense now picks the batched-partials layout when constraints
-        # hold (group-major bytes, see MoEINT4.from_dense)
+        # from_dense picks the group-major layout when 128 | gs | K/2
         assert mod.weight.layout == "planar_groups"
         x = randw(rng, T, K2)
         r = topk_route(randw(rng, T, E2), TOPK, E2)

@@ -5,7 +5,7 @@ single-process virtual meshes; these tests spawn TWO real OS processes, join
 them with `jax.distributed.initialize` (CPU backend, localhost coordinator),
 and run the EP MoE and the fully sharded model step across the process
 boundary — converting "host-count agnostic by construction" into tested
-fact. The same `initialize()` entry point is what a real TPU pod run uses
+fact. The same `initialize()` entry point is what a real multi-host run uses
 (parallel/multihost.py).
 """
 import os

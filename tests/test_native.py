@@ -2,8 +2,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from fused4bit_tpu import native
-from fused4bit_tpu.quant import QuantizedTensor, dequantize, quantize
+from fused4bit import native
+from fused4bit.quant import QuantizedTensor, dequantize, quantize
 
 
 class TestNativePacker:

@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fused4bit_tpu.layers.kv_cache import QuantizedKVCache
-from fused4bit_tpu.layers.paged_kv import PagedKVCache
-from fused4bit_tpu.ops.decode_attention import (
+from fused4bit.layers.kv_cache import QuantizedKVCache
+from fused4bit.layers.paged_kv import PagedKVCache
+from fused4bit.ops.decode_attention import (
     int4_decode_attention,
     int4_prefill_attention,
 )
@@ -97,18 +97,18 @@ class TestPagedCache:
 
 class TestPagedAttention:
     def test_decode_bit_equal_at_matching_tiling(self):
-        """Page-gathering kernel == contiguous kernel when the contiguous
-        s_tile equals the page size (identical accumulation order)."""
+        """Page-table kernel == contiguous kernel when the contiguous tile
+        equals the page size (identical accumulation order)."""
         cont, paged = _mk_pair()
         q = jax.random.normal(jax.random.PRNGKey(9), (B, HQ, D), jnp.float32)
-        oc = int4_decode_attention(q, cont, s_tile=PAGE)
-        op = int4_decode_attention(q, paged)  # dispatches on page_table
+        oc = int4_decode_attention(q, cont, block_s=PAGE, interpret=True)
+        op = int4_decode_attention(q, paged, interpret=True)  # page_table
         np.testing.assert_array_equal(np.asarray(oc), np.asarray(op))
 
     def test_decode_vs_dense_golden(self):
         cont, paged = _mk_pair()
         q = jax.random.normal(jax.random.PRNGKey(9), (B, HQ, D), jnp.float32)
-        op = int4_decode_attention(q, paged)
+        op = int4_decode_attention(q, paged, interpret=True)
         kd, vd = cont.dequantize(jnp.float32)
         g = HQ // HKV
         kr, vr = jnp.repeat(kd, g, 1), jnp.repeat(vd, g, 1)
@@ -126,16 +126,45 @@ class TestPagedAttention:
         t = 8
         q = jax.random.normal(jax.random.PRNGKey(10), (B, HQ, t, D), jnp.float32)
         starts = cont.lengths - t
-        o1 = int4_prefill_attention(q, cont, starts, s_tile=PAGE)
+        o1 = int4_prefill_attention(q, cont, starts)
         o2 = int4_prefill_attention(q, paged, starts)
         np.testing.assert_array_equal(np.asarray(o1), np.asarray(o2))
+
+
+class TestDecodeKernel:
+    """The Triton-route decode kernel in the Pallas interpreter against the
+    plain path, at several lengths per slot (tile and split boundaries)."""
+
+    @pytest.mark.parametrize("lengths", [(1, 2), (17, 33), (48, 64), (63, 5)])
+    @pytest.mark.parametrize("paged", [False, True])
+    def test_matches_plain(self, lengths, paged):
+        import dataclasses
+
+        cont, pag = _mk_pair(t0=S)
+        cache = pag if paged else cont
+        cache = dataclasses.replace(cache, lengths=jnp.asarray(lengths, jnp.int32))
+        q = jax.random.normal(jax.random.PRNGKey(11), (B, HQ, D), jnp.float32)
+        got = int4_decode_attention(q, cache, interpret=True)
+        want = int4_decode_attention(q, cache)     # plain on the CPU
+        # the kernel rounds q, K/V and the softmax weights to bf16
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   atol=3e-2, rtol=3e-2)
+
+    def test_compiled_kernel_refuses_tiny_pages(self, monkeypatch):
+        from fused4bit import platform
+
+        _, pag = _mk_pair()
+        monkeypatch.setattr(platform, "kernel_mode", lambda i=None: "compiled")
+        q = jnp.zeros((B, HQ, D), jnp.float32)
+        with pytest.raises(ValueError, match="power of two >= 32"):
+            int4_decode_attention(q, pag)
 
 
 class TestPagedModelAndEngine:
     @pytest.fixture(scope="class")
     def setup(self):
-        from fused4bit_tpu.models.config import flagship_model_config
-        from fused4bit_tpu.models.transformer import QuantizedTransformer
+        from fused4bit.models.config import flagship_model_config
+        from fused4bit.models.transformer import QuantizedTransformer
 
         cfg = flagship_model_config("tiny")
         model = QuantizedTransformer.init(jax.random.PRNGKey(0), cfg)
@@ -172,7 +201,7 @@ class TestPagedModelAndEngine:
     def test_engine_paged_matches_contiguous_greedy(self, setup):
         """End-to-end serving: the paged engine generates the same greedy
         tokens as the contiguous engine."""
-        from fused4bit_tpu.serving.engine import GenerationRequest, ServingEngine
+        from fused4bit.serving.engine import GenerationRequest, ServingEngine
 
         cfg, model = setup
         kw = dict(num_slots=2, max_seq=64, prefill_bucket=8)
@@ -198,7 +227,7 @@ class TestPagedModelAndEngine:
     def test_engine_page_pool_oversubscription(self, setup):
         """A pool smaller than num_slots*max_seq admits requests as pages
         free up — every request still completes (admission control)."""
-        from fused4bit_tpu.serving.engine import GenerationRequest, ServingEngine
+        from fused4bit.serving.engine import GenerationRequest, ServingEngine
 
         cfg, model = setup
         # 5 pages of 16 = 80 positions for 2 slots x max_seq 64 (8 pages'
@@ -218,7 +247,7 @@ class TestPagedModelAndEngine:
         assert sorted(eng._free_pages) == list(range(1, 6))
 
     def test_engine_request_too_big_for_pool(self, setup):
-        from fused4bit_tpu.serving.engine import GenerationRequest, ServingEngine
+        from fused4bit.serving.engine import GenerationRequest, ServingEngine
 
         cfg, model = setup
         eng = ServingEngine(
@@ -233,7 +262,7 @@ class TestPagedModelAndEngine:
         """Requests sharing a full-page prompt prefix reuse the SAME
         physical pages (refcounted), skip re-prefilling them, and still
         generate the same tokens as an engine with prefix caching off."""
-        from fused4bit_tpu.serving.engine import GenerationRequest, ServingEngine
+        from fused4bit.serving.engine import GenerationRequest, ServingEngine
 
         cfg, model = setup
         prefix = list(range(1, 17))            # exactly one 16-token page
@@ -266,7 +295,7 @@ class TestPagedModelAndEngine:
     def test_prefix_pages_refcounted_across_retirement(self, setup):
         """A shared page frees only when the LAST holder retires; prefix
         entries die with it."""
-        from fused4bit_tpu.serving.engine import GenerationRequest, ServingEngine
+        from fused4bit.serving.engine import GenerationRequest, ServingEngine
 
         cfg, model = setup
         eng = ServingEngine(
@@ -301,7 +330,7 @@ class TestPagedModelAndEngine:
         """The system-prompt scenario: requests arrive AFTER earlier holders
         retired — retained pages still hit; eviction reclaims them under
         pool pressure without breaking completions."""
-        from fused4bit_tpu.serving.engine import GenerationRequest, ServingEngine
+        from fused4bit.serving.engine import GenerationRequest, ServingEngine
 
         cfg, model = setup
         sys_prompt = list(range(3, 19))  # one full 16-token page
@@ -352,7 +381,7 @@ class TestPagedModelAndEngine:
         pinned pages survive; the allocator invariants hold after every
         step; the hit request generates the same first token as an
         uncached engine."""
-        from fused4bit_tpu.serving.engine import GenerationRequest, ServingEngine
+        from fused4bit.serving.engine import GenerationRequest, ServingEngine
 
         cfg, model = setup
         mk = lambda pc: ServingEngine(  # noqa: E731
@@ -390,7 +419,7 @@ class TestPagedModelAndEngine:
         write through the table correctly: output matches a decode_block=1
         paged engine and the contiguous engine (first token exact, same
         lengths)."""
-        from fused4bit_tpu.serving.engine import GenerationRequest, ServingEngine
+        from fused4bit.serving.engine import GenerationRequest, ServingEngine
 
         cfg, model = setup
         prompt = list(range(1, 15))  # 14 tokens; page 16 -> decode crosses at 16
@@ -412,13 +441,13 @@ class TestPagedModelAndEngine:
         assert outs["blk4"][:3] == outs["blk1"][:3]
 
     def test_top_p_zero_rejected(self, setup):
-        from fused4bit_tpu.serving.engine import Sampler
+        from fused4bit.serving.engine import Sampler
 
         with pytest.raises(ValueError, match="top_p"):
             Sampler(temperature=1.0, top_p=0.0)
 
     def test_engine_invalid_page_config(self, setup):
-        from fused4bit_tpu.serving.engine import ServingEngine
+        from fused4bit.serving.engine import ServingEngine
 
         cfg, model = setup
         with pytest.raises(ValueError, match="multiple of prefill_bucket"):

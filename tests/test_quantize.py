@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fused4bit_tpu.quant import (
+from fused4bit.quant import (
     QuantizedTensor,
     choose_block_k,
     dequantize,
@@ -126,7 +126,7 @@ class TestLayouts:
         """planar_groups is a pure reorder of planar bytes: [Gh, N, gs]
         round-trips to planar exactly, dequantizes identically, and works
         over stacked expert dims."""
-        from fused4bit_tpu.quant.core import (
+        from fused4bit.quant.core import (
             planar_groups_to_planar,
             planar_to_planar_groups,
         )
@@ -211,7 +211,7 @@ class TestPadRows:
     """pad_rows: conversion-time row padding for kernel-best tiles."""
 
     def test_padded_dequant_matches_with_zero_tail(self, rng):
-        from fused4bit_tpu.quant import pad_rows
+        from fused4bit.quant import pad_rows
 
         w = randw(rng, 300, 64)
         for kwargs in (
@@ -228,13 +228,13 @@ class TestPadRows:
             assert float(jnp.max(jnp.abs(wd[300:]))) == 0.0
 
     def test_noop_when_aligned(self, rng):
-        from fused4bit_tpu.quant import pad_rows
+        from fused4bit.quant import pad_rows
 
         qt = quantize(randw(rng, 256, 64))
         assert pad_rows(qt, 128) is qt
 
     def test_quantized_linear_padded_for_kernel(self, rng):
-        from fused4bit_tpu.layers.linear import QuantizedLinear
+        from fused4bit.layers.linear import QuantizedLinear
 
         w = randw(rng, 300, 512)
         x = jnp.asarray(rng.normal(size=(4, 512)), jnp.float32)

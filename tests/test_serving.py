@@ -6,9 +6,9 @@ import pytest
 
 pytestmark = pytest.mark.slow  # run with: pytest -m slow (or -m "")
 
-from fused4bit_tpu.models.config import flagship_model_config
-from fused4bit_tpu.models.transformer import QuantizedTransformer
-from fused4bit_tpu.serving.engine import GenerationRequest, Sampler, ServingEngine
+from fused4bit.models.config import flagship_model_config
+from fused4bit.models.transformer import QuantizedTransformer
+from fused4bit.serving.engine import GenerationRequest, Sampler, ServingEngine
 
 
 @pytest.fixture(scope="module")
@@ -119,7 +119,7 @@ class TestEngine:
         import numpy as np
 
         cfg, model = setup
-        from fused4bit_tpu.serving import generate
+        from fused4bit.serving import generate
 
         prompt = [1, 2, 3]
         toks, lps = generate(
@@ -260,7 +260,7 @@ class TestEngine:
     def test_engine_runs_xla_turbo_model(self, setup):
         """The int8-resident execution mode serves end to end: first token
         agrees with the standard kernel model (same int4 weights)."""
-        from fused4bit_tpu.models.transformer import as_xla_turbo
+        from fused4bit.models.transformer import as_xla_turbo
 
         cfg, model = setup
         prompt = [3, 5, 7, 9]
@@ -296,8 +296,8 @@ class TestEngine:
     def test_u4_turbo_model_with_decode_block(self, setup):
         """as_u4_turbo engine (packed residency, regime dispatch) under
         decode_block>1: accounting + first token must match the plain-model
-        single-step engine (the TPU serving-benchmark configuration)."""
-        from fused4bit_tpu.models.transformer import as_u4_turbo
+        single-step engine."""
+        from fused4bit.models.transformer import as_u4_turbo
 
         cfg, model = setup
         eng1 = make_engine(cfg, model)
@@ -351,8 +351,8 @@ class TestShardedEngine:
 
     @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
     def test_sharded_engine_runs_and_recycles_slots(self, setup):
-        from fused4bit_tpu.parallel.mesh import make_mesh
-        from fused4bit_tpu.parallel.sharded_model import place_model
+        from fused4bit.parallel.mesh import make_mesh
+        from fused4bit.parallel.sharded_model import place_model
 
         cfg, model = setup
         mesh = make_mesh(("data", "expert"), (2, 4))
@@ -370,8 +370,8 @@ class TestShardedEngine:
 
     @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
     def test_sharded_engine_first_token_matches_single_device(self, setup):
-        from fused4bit_tpu.parallel.mesh import make_mesh
-        from fused4bit_tpu.parallel.sharded_model import place_model
+        from fused4bit.parallel.mesh import make_mesh
+        from fused4bit.parallel.sharded_model import place_model
 
         cfg, model = setup
         prompt = [5, 7, 9]
@@ -394,8 +394,8 @@ class TestShardedEngine:
         chunk must append K/V at its own start_pos with correct RoPE phases
         (round-2 advisor high: _prefill_sharded_impl hardcoded the target
         row's start to 0, piling all chunks onto positions [0, bucket))."""
-        from fused4bit_tpu.parallel.mesh import make_mesh
-        from fused4bit_tpu.parallel.sharded_model import place_model
+        from fused4bit.parallel.mesh import make_mesh
+        from fused4bit.parallel.sharded_model import place_model
 
         cfg, model = setup
         prompt = list(range(3, 3 + 11))  # 11 tokens, bucket 4 -> chunks 4/4/3
@@ -426,7 +426,7 @@ class TestGenerateAPI:
     def test_one_call_generate(self, setup):
         """serving.generate: prompts in, per-prompt completions out, in
         order, honoring max_new_tokens."""
-        from fused4bit_tpu.serving import generate
+        from fused4bit.serving import generate
 
         cfg, model = setup
         outs = generate(
@@ -436,7 +436,7 @@ class TestGenerateAPI:
         assert [len(o) for o in outs] == [4, 4, 4]
 
     def test_generate_empty(self, setup):
-        from fused4bit_tpu.serving import generate
+        from fused4bit.serving import generate
 
         cfg, model = setup
         assert generate(model, cfg, []) == []

@@ -15,9 +15,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fused4bit_tpu.models.config import flagship_model_config
-from fused4bit_tpu.models.transformer import QuantizedTransformer
-from fused4bit_tpu.serving.speculative import (
+from fused4bit.models.config import flagship_model_config
+from fused4bit.models.transformer import QuantizedTransformer
+from fused4bit.serving.speculative import (
     SpeculativeDecoder,
     speculative_generate,
 )
@@ -134,7 +134,7 @@ class TestSpeculative:
         """ServingEngine(draft_model=...): speculative rounds drive the
         slot loop — more requests than slots, per-slot acceptance, greedy
         trajectories, logprobs aligned with tokens."""
-        from fused4bit_tpu.serving import GenerationRequest, ServingEngine
+        from fused4bit.serving import GenerationRequest, ServingEngine
 
         cfg, target, _ = models
         import dataclasses as dc
@@ -164,7 +164,7 @@ class TestSpeculative:
         outputs match the plain engine's greedy results token-for-token
         (same compiled-program families up to the documented near-tie
         wobble — assert first token + lengths, trajectory property)."""
-        from fused4bit_tpu.serving import GenerationRequest, ServingEngine
+        from fused4bit.serving import GenerationRequest, ServingEngine
 
         cfg, target, _ = models
         eng = ServingEngine(
@@ -187,7 +187,7 @@ class TestSpeculative:
             )
 
     def test_engine_spec_eos_stops(self, models):
-        from fused4bit_tpu.serving import GenerationRequest, ServingEngine
+        from fused4bit.serving import GenerationRequest, ServingEngine
 
         cfg, target, _ = models
         eng = ServingEngine(
@@ -207,7 +207,7 @@ class TestSpeculative:
         assert eos in out and out[out.index(eos):] == [eos]
 
     def test_engine_spec_mode_validation(self, models):
-        from fused4bit_tpu.serving import Sampler, ServingEngine
+        from fused4bit.serving import Sampler, ServingEngine
 
         cfg, target, draft = models
         with pytest.raises(ValueError, match="decode_block"):

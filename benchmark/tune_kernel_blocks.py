@@ -46,7 +46,7 @@ def _stack(qt):
 def sweep(name, x, gids, qts, block_m, grid):
     e, n, k = qts[0].shape
     gs = qts[0].group_size if qts[0].granularity == "per_group" else 0
-    current = kernel_blocks(block_m, gids.shape[0], n, k // 2, gs)
+    current = kernel_blocks(block_m, n, k // 2, gs, grouped=e > 1)
     rows = []
     for bn, bkh, splits, (nw, ns) in grid:
         kw = dict(block_m=block_m, block_n=bn, block_kh=bkh, k_splits=splits,

@@ -2,21 +2,22 @@
 
 No KV cache and no kernels: each layer's INT4 weights are dequantized to
 float32 inside that layer's program, and every product runs at HIGHEST
-precision. K and V go through the INT4 cache's per-vector rounding
-(`layers.kv_cache`), which is part of the model's function. Only one layer's float32 weights exist at a time (about 5.6 GB at
+precision. K and V go through the INT4 cache's per-vector rounding (16
+levels between each [D] vector's min and max), which is part of the model's
+function. Only one layer's float32 weights exist at a time (about 5.6 GB at
 Mixtral-8x7B widths), so the full model can be checked on one card. Every
 expert is evaluated for every token and the router's top-k weights select
-among them, so no dispatch code is shared with the path under test.
+among them. Routing, RoPE and the KV rounding are written again here, so
+that no code of the path under test but the weights' dequantization is
+shared with it.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 
-from ..layers.kv_cache import _affine
-from ..layers.moe import topk_route
 from ..quant.core import dequantize
-from .transformer import QuantizedTransformer, TransformerBlock, rotary_embedding
+from .transformer import QuantizedTransformer, TransformerBlock
 
 __all__ = ["reference_logits"]
 
@@ -34,9 +35,35 @@ def _rms(x, gamma, eps):
 
 
 def _kv_round(x):
-    """The INT4 cache's rounding of each [D] vector, back in float32."""
-    q, scale, zp = _affine(x)
-    return (q.astype(jnp.float32) - zp[..., None]) * scale[..., None]
+    """The INT4 cache's rounding of each [D] vector, back in float32: 15
+    steps from the vector's min to its max, the zero point an integer step
+    (a constant vector gets max(|x|, 1) / 15 as its step)."""
+    lo = jnp.min(x, axis=-1, keepdims=True)
+    hi = jnp.max(x, axis=-1, keepdims=True)
+    step = jnp.where(hi == lo, jnp.maximum(jnp.abs(hi), 1.0), hi - lo) / 15.0
+    step = jnp.maximum(step, 1e-8)
+    zp = jnp.clip(jnp.round(-lo / step), 0.0, 15.0)
+    q = jnp.clip(jnp.round(x / step + zp), 0.0, 15.0)
+    return (q - zp) * step
+
+
+def _rope(x, theta):
+    """Half-split rotary embedding of x [B, H, T, D] at positions 0..T-1."""
+    d = x.shape[-1]
+    inv = 1.0 / theta ** (jnp.arange(d // 2, dtype=jnp.float32) * 2.0 / d)
+    ang = jnp.arange(x.shape[2], dtype=jnp.float32)[:, None] * inv[None, :]
+    c, s = jnp.cos(ang), jnp.sin(ang)
+    a, b = x[..., : d // 2], x[..., d // 2:]
+    return jnp.concatenate([a * c - b * s, b * c + a * s], axis=-1)
+
+
+def _gates(router_logits, top_k):
+    """[T, E] weights: softmax over the experts, the top_k kept and
+    renormalised, the others zero."""
+    probs = jax.nn.softmax(router_logits, axis=-1)
+    w, idx = jax.lax.top_k(probs, top_k)
+    w = w / jnp.sum(w, axis=-1, keepdims=True)
+    return jnp.sum(jax.nn.one_hot(idx, probs.shape[-1]) * w[..., None], axis=1)
 
 
 def _mm(x, w):
@@ -54,8 +81,8 @@ def _block(blk: TransformerBlock, x: jnp.ndarray) -> jnp.ndarray:
     q = _mm(h, _dense(at.wq)).reshape(b, t, nh, hd).transpose(0, 2, 1, 3)
     k = _mm(h, _dense(at.wk)).reshape(b, t, nkv, hd).transpose(0, 2, 1, 3)
     v = _mm(h, _dense(at.wv)).reshape(b, t, nkv, hd).transpose(0, 2, 1, 3)
-    q = rotary_embedding(q, pos, at.rope_theta)
-    k = rotary_embedding(k, pos, at.rope_theta)
+    q = _rope(q, at.rope_theta)
+    k = _rope(k, at.rope_theta)
     k = jnp.repeat(_kv_round(k), nh // nkv, axis=1)
     v = jnp.repeat(_kv_round(v), nh // nkv, axis=1)
     s = jnp.einsum("bhtd,bhsd->bhts", q, k, precision=_HI) * hd ** -0.5
@@ -65,9 +92,8 @@ def _block(blk: TransformerBlock, x: jnp.ndarray) -> jnp.ndarray:
 
     moe = blk.moe
     h = _rms(x, blk.moe_norm, blk.rms_eps).reshape(b * t, -1)
-    routing = topk_route(
-        jnp.einsum("tk,nk->tn", h, _dense(moe.router), precision=_HI),
-        moe.top_k, moe.num_experts,
+    gate = _gates(
+        jnp.einsum("tk,nk->tn", h, _dense(moe.router), precision=_HI), moe.top_k
     )
     wg = dequantize(moe.w_gate.weight, dtype=jnp.float32)
     wu = dequantize(moe.w_up.weight, dtype=jnp.float32)
@@ -75,10 +101,6 @@ def _block(blk: TransformerBlock, x: jnp.ndarray) -> jnp.ndarray:
     g = jnp.einsum("tk,enk->etn", h, wg, precision=_HI)
     u = jnp.einsum("tk,enk->etn", h, wu, precision=_HI)
     y = jnp.einsum("etn,ehn->eth", jax.nn.silu(g) * u, wd, precision=_HI)
-    gate = jnp.zeros((b * t, moe.num_experts), jnp.float32)
-    gate = jax.vmap(lambda r, i, w: r.at[i].add(w))(
-        gate, routing.expert_indices, routing.expert_weights
-    )
     return x + jnp.einsum("te,eth->th", gate, y, precision=_HI).reshape(b, t, -1)
 
 

@@ -101,5 +101,5 @@ def grouped_int4_matmul(
     return int4_kernel_call(
         x_sorted, gids, qt, block_m=tile_m, compute_dtype=compute_dtype,
         out_dtype=out_dtype, interpret=mode == "interpret",
-        **kernel_blocks(tile_m, t_pad // tile_m, n, k // 2, gs),
+        **kernel_blocks(tile_m, n, k // 2, gs, grouped=True),
     )

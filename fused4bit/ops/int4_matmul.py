@@ -192,10 +192,18 @@ def int4_kernel_call(
     return out[0] if k_splits == 1 else out.sum(axis=0).astype(out_dtype)
 
 
-def kernel_blocks(block_m: int, m_blocks: int, n: int, k_half: int,
-                  group_size: int) -> dict:
-    """Block sizes and launch parameters of the kernel for ``m_blocks``
-    m-blocks of ``block_m`` rows, N outputs and K/2 packed bytes per row.
+def kernel_blocks(block_m: int, n: int, k_half: int, group_size: int,
+                  *, grouped: bool = False) -> dict:
+    """Block sizes and launch parameters of the kernel for m-blocks of
+    ``block_m`` rows, N outputs and K/2 packed bytes per row.
+
+    The blocks, and so the order in which a row's products are summed, never
+    depend on how many m-blocks a launch has: a row's result must not change
+    with the other rows of the batch, or with how many of a layer's experts
+    one card holds (the DP x EP mesh gives the one-card engine's tokens).
+    They are tuned for the one-card engine's launches: one m-block for a
+    linear (decode up to 16 rows, prefill chunks of 64), nine for the
+    grouped MoE (one per Mixtral expert, plus the spare tile).
 
     Chosen on an H100 80GB HBM3 with `benchmark/tune_kernel_blocks.py` at
     the Mixtral-8x7B widths (decode M=8 linears, grouped T=8 and T=2048,
@@ -204,6 +212,7 @@ def kernel_blocks(block_m: int, m_blocks: int, n: int, k_half: int,
     there are about eight programs per SM. Larger m-blocks are bound by the
     tensor cores: 128-wide n-blocks with 32-byte K steps, or 64 and 64 when
     there are few n-blocks; both halves' x tiles must fit shared memory."""
+    m_blocks = 9 if grouped else 1
     steps_of = lambda cap: _pow2_divisor(group_size or k_half, cap)  # noqa: E731
     if block_m > 16:
         wide = m_blocks * _cdiv(n, 128) >= 2 * 132
@@ -301,7 +310,7 @@ def int4_matmul(
         )
 
     block_m = 16 if m <= 16 else 64
-    blocks = kernel_blocks(block_m, _cdiv(m, block_m), n, k // 2, gs)
+    blocks = kernel_blocks(block_m, n, k // 2, gs)
     stacked = dataclasses.replace(
         qt, packed=qt.packed[None], scales=qt.scales[None],
         zero_points=qt.zero_points[None], shape=(1,) + tuple(qt.shape),

@@ -108,12 +108,15 @@ def _ep_moe_block(block: MoEBlock, x: jnp.ndarray, axis: str, interpret):
     ).astype(jnp.int32)
     local_routing = RoutingResult(local_ids, weights, tpe, offsets)
 
-    plan = make_dispatch_plan(local_routing, e_local, tile_m=block.tile_m)
+    # MoEBlock's m-tile for this many tokens, so each token's expert rows run
+    # in the blocks they run in on one card
+    tile_m = block.prefill_tile_m if b * t > block.prefill_threshold else block.tile_m
+    plan = make_dispatch_plan(local_routing, e_local, tile_m=tile_m)
     xs = dispatch(xf, local_routing, plan)
-    g = w_gate(xs, plan.tile_group_ids, tile_m=block.tile_m, interpret=interpret)
-    u = w_up(xs, plan.tile_group_ids, tile_m=block.tile_m, interpret=interpret)
+    g = w_gate(xs, plan.tile_group_ids, tile_m=tile_m, interpret=interpret)
+    u = w_up(xs, plan.tile_group_ids, tile_m=tile_m, interpret=interpret)
     hsw = (jax.nn.silu(g.astype(jnp.float32)) * u.astype(jnp.float32)).astype(xs.dtype)
-    d = w_down(hsw, plan.tile_group_ids, tile_m=block.tile_m, interpret=interpret)
+    d = w_down(hsw, plan.tile_group_ids, tile_m=tile_m, interpret=interpret)
     part = combine(d, local_routing, plan)
     out = jax.lax.psum(part, axis)
     return out.reshape(b, t, h)

@@ -361,6 +361,18 @@ class TestInt4Kernel:
             np.asarray(got), np.asarray(reference_linear_qt(x, qt)), atol=2e-3
         )
 
+    def test_rows_do_not_depend_on_the_batch(self, rng):
+        """A row comes out bit for bit the same in a 64-row batch and in a
+        256-row one (a one-slot prefill chunk and the whole batch's): the
+        blocks, and so the order of the float32 sums, follow the weight and
+        not the number of m-blocks."""
+        qt = quantize(randw(rng, 128 * 70, 256))
+        x = randw(rng, 256, 256).astype(jnp.bfloat16)
+        mm = jax.jit(lambda a: int4_matmul(a, qt, interpret=True,
+                                           out_dtype=jnp.float32))
+        np.testing.assert_array_equal(np.asarray(mm(x[:64])),
+                                      np.asarray(mm(x)[:64]))
+
     def test_bf16_matches_bf16_dequant_product(self, rng):
         from fused4bit.quant.core import dequantize
 
@@ -390,13 +402,15 @@ class TestInt4Kernel:
     def test_kernel_blocks(self):
         from fused4bit.ops.int4_matmul import kernel_blocks
 
-        few = kernel_blocks(16, 1, 4096, 7168, 0)      # 14336 -> 4096 decode
-        many = kernel_blocks(16, 1, 32000, 2048, 0)    # LM head at decode
+        few = kernel_blocks(16, 4096, 7168, 0)      # 14336 -> 4096 decode
+        many = kernel_blocks(16, 32000, 2048, 0)    # LM head at decode
         # fewer output blocks -> the K range splits over more programs
         assert few["k_splits"] >= many["k_splits"] >= 1
-        grouped = kernel_blocks(16, 9, 4096, 7168, 128)
+        grouped = kernel_blocks(16, 4096, 7168, 128, grouped=True)
         assert 128 % grouped["block_kh"] == 0
-        prefill = kernel_blocks(128, 40, 14336, 2048, 0)
+        # a grouped launch has more m-blocks: it splits K less
+        assert grouped["k_splits"] <= kernel_blocks(16, 4096, 7168, 128)["k_splits"]
+        prefill = kernel_blocks(128, 14336, 2048, 0, grouped=True)
         assert prefill["k_splits"] == 1
         for b in (few, many, grouped, prefill):
             steps = (7168 if b is not many else 2048) // b["block_kh"]

@@ -58,3 +58,45 @@ def test_reference_sees_padded_linear_rows(f32_model):
     assert got.shape == (1, 5, cfg.vocab_size)
     np.testing.assert_allclose(np.asarray(got),
                                np.asarray(reference_logits(m, toks)), atol=1e-5)
+
+
+def test_reference_rope_matches_model(rng):
+    """The reference's own RoPE and the model's agree."""
+    from fused4bit.models.reference import _rope
+    from fused4bit.models.transformer import rotary_embedding
+
+    x = jnp.asarray(rng.standard_normal((2, 3, 9, 16)), jnp.float32)
+    np.testing.assert_allclose(
+        np.asarray(_rope(x, 10000.0)),
+        np.asarray(rotary_embedding(x, jnp.arange(9), 10000.0)),
+        atol=1e-5,
+    )
+
+
+def test_reference_kv_rounding_matches_cache(rng):
+    """The reference's own per-vector rounding and the INT4 cache's
+    quantize-dequantize agree, constant vectors included."""
+    from fused4bit.layers.kv_cache import dequantize_kv, quantize_kv
+    from fused4bit.models.reference import _kv_round
+
+    x = jnp.asarray(rng.standard_normal((4, 5, 32)), jnp.float32)
+    x = x.at[0, 0].set(0.3).at[0, 1].set(-2.0).at[0, 2].set(0.0)
+    np.testing.assert_allclose(
+        np.asarray(_kv_round(x)), np.asarray(dequantize_kv(*quantize_kv(x))),
+        atol=1e-6,
+    )
+
+
+def test_reference_gates_match_router(rng):
+    """The reference's own top-k gate matrix and the router's top-k agree."""
+    from fused4bit.layers.moe import topk_route
+    from fused4bit.models.reference import _gates
+
+    logits = jnp.asarray(rng.standard_normal((16, 8)), jnp.float32)
+    r = topk_route(logits, 2, 8)
+    want = np.zeros((16, 8), np.float32)
+    for t in range(16):
+        for i, w in zip(np.asarray(r.expert_indices[t]),
+                        np.asarray(r.expert_weights[t])):
+            want[t, i] += w
+    np.testing.assert_allclose(np.asarray(_gates(logits, 2)), want, atol=1e-6)
